@@ -1,11 +1,11 @@
 # kaptive-tpu container image.
 #
 # Mirrors the reference's container story (/root/reference/Dockerfile) with a
-# plain pip build: the package has two runtime dependencies (numpy, jax) and
-# an optional C++ toolchain for the native host-ingest path.  For TPU VMs,
-# swap the jax install for the libtpu wheel (see the TPU note below).
+# plain pip build: the package has two runtime dependencies (numpy, jax with
+# its CUDA plugin), a C++ toolchain for the native host-ingest path, and the
+# CUDA toolkit's nvcc for the banded-SWG kernel (built at first use on a GPU).
 
-FROM python:3.12-slim-bookworm AS base
+FROM nvidia/cuda:12.8.0-devel-ubuntu24.04 AS base
 
 WORKDIR /app
 
@@ -15,15 +15,14 @@ ENV PYTHONDONTWRITEBYTECODE=0 \
 # g++ enables the native hostio ingest library (built lazily at first import;
 # everything still works without it, just with slower host-side FASTA ingest).
 RUN apt-get update \
-    && apt-get install -y --no-install-recommends g++ \
-    && rm -rf /var/lib/apt/lists/*
+    && apt-get install -y --no-install-recommends g++ python3 python3-pip python3-venv \
+    && rm -rf /var/lib/apt/lists/* \
+    && python3 -m venv /opt/venv
+ENV PATH=/opt/venv/bin:$PATH
 
 # Dependency layer first so source edits do not bust the cache.
 COPY pyproject.toml README.md ./
-RUN pip install numpy "jax>=0.4.30"
-
-# TPU note: on a TPU VM base the CPU jax wheel above should instead be
-#   pip install "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+RUN pip install numpy "jax[cuda12]~=0.9.0"
 
 COPY kaptive_tpu ./kaptive_tpu
 COPY native ./native

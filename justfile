@@ -13,7 +13,6 @@ clean:
     rm -rf build dist site .ruff_cache .pytest_cache
     find . -type d -name "__pycache__" -exec rm -rf {} +
     find . -type f -name "*.pyc" -delete
-    rm -f kaptive_tpu/native/_hostio.so
 
 # Editable install (no build isolation; deps are expected preinstalled)
 install:
@@ -25,11 +24,15 @@ run *args:
 
 # Full test suite on the CPU backend with a virtual 8-device mesh
 test *args:
-    python -m pytest tests/ -q {{args}}
+    JAX_PLATFORMS=cpu python -m pytest tests/ -q {{args}}
 
-# Kernel tests on a real TPU chip (scan + SWG Pallas suites)
-test-tpu:
-    KAPTIVE_TPU_TEST_DEVICE=tpu python -m pytest tests/test_scan_pallas.py tests/test_swg_pallas.py -q
+# GPU-only tests (the CUDA SWG kernel against lax and the numpy oracle)
+test-gpu:
+    python -m pytest tests/ -q -m gpu
+
+# End-to-end proof on one GPU: kernel parity, typing, seed-mode parity
+smoke *args:
+    python chip_smoke.py {{args}}
 
 # Lint + format check (same gate as CI)
 lint:
@@ -40,7 +43,7 @@ lint:
 format:
     ruff format kaptive_tpu
 
-# Throughput benchmark on the default accelerator (prints one JSON line)
+# Throughput benchmark on the GPU (prints one JSON line)
 bench *args:
     python bench.py {{args}}
 

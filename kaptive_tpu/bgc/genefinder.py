@@ -1,10 +1,10 @@
-r"""Frameshift-tolerant gene-finding HMM (FragGeneScan-class, TPU-native).
+r"""Frameshift-tolerant gene-finding HMM (FragGeneScan-class, on device).
 
 The reference's BGC annotator wraps ``pyfgs`` (the Rust/C FragGeneScan
 binding, ``/root/reference/src/kaptive/bgc/annotate.py:261-278``): an HMM
 whose insertion/deletion states keep a gene intact across sequencing-error
 frameshifts, where a plain six-frame ORF scan yields two fragments in
-different frames.  This module is the TPU-native equivalent: a 7-state
+different frames.  This module is the device equivalent: a 7-state
 codon-phase HMM decoded with a ``jax.lax.scan`` Viterbi (SURVEY.md §2.2 maps
 pyfgs to exactly this construct), with codon-usage emissions estimated from
 the reference database's own genes.

@@ -7,9 +7,9 @@ Capability parity with ``/root/reference/src/kaptive/bgc/kernels.py``:
 novelty state), ``architectural_viterbi_kernel`` (:148-203, max-plus DP with
 forced POST termination).
 
-TPU design: the histogram is a scatter-add, smoothing is a prefix-sum window
-mean, emissions are one ``(N,D)x(D,K)`` matmul via the squared-distance
-expansion (MXU), and Viterbi is a ``lax.scan`` over ORFs with a vectorised
+Device design: the histogram is a scatter-add, smoothing is a prefix-sum
+window mean, emissions are one ``(N,D)x(D,K)`` matmul via the squared-distance
+expansion, and Viterbi is a ``lax.scan`` over ORFs with a vectorised
 max-plus step and backpointer gather — no per-cell Python.
 """
 
@@ -58,7 +58,7 @@ def contextualize_features(features: jax.Array, window_size: int) -> jax.Array:
 def archetype_emissions(
     features: jax.Array, centroids: jax.Array, bg_centroid: jax.Array, novelty_score: float
 ) -> jax.Array:
-    r"""Log-emissions (N, K+3): background, K archetypes, NOVEL, POST — MXU distance expansion."""
+    r"""Log-emissions (N, K+3): background, K archetypes, NOVEL, POST — matmul distance expansion."""
     n = features.shape[0]
     k = centroids.shape[0]
     # -||x - c||^2 = -(|x|^2 - 2 x.c + |c|^2)

@@ -345,8 +345,8 @@ def main() -> None:
     from kaptive_tpu.serotyping.cli import Convert, Type
 
     with Cli(
-        description="🦠 kaptive-tpu: TPU-native in silico serotyping of surface antigen loci.",
-        epilog="📚 A TPU-native framework with the capabilities of Kaptive 3.",
+        description="🦠 kaptive-tpu: GPU-accelerated in silico serotyping of surface antigen loci.",
+        epilog="📚 A JAX framework with the capabilities of Kaptive 3.",
     ) as app:
         for command_cls in (Database, Type, Convert):
             app.mount(command_cls())

@@ -7,7 +7,7 @@ selection (:606), overlap culling (:643), interval conversion (:753) and
 contig-edge partial detection (:774-809).
 
 Design: in the reference, alignments are ingested from rammappy's per-hit
-iterators and a Numba CIGAR-string parser (:872-938).  Here the TPU mapper
+iterators and a Numba CIGAR-string parser (:872-938).  Here the device mapper
 (:mod:`kaptive_tpu.ops.mapper`) produces flat arrays directly, so ingest is a
 zero-copy constructor (:meth:`Alignments.from_arrays`); the CIGAR byte-string
 parser is kept (vectorised numpy) for PAF/SAM interchange.
@@ -286,10 +286,10 @@ class Alignments(SoAContainer):
         is_primary: npt.NDArray[np.bool_] | None = None,
         divergence: npt.NDArray[np.floating] | None = None,
     ) -> Alignments:
-        r"""Zero-copy ingest from the TPU mapper's flat output arrays.
+        r"""Zero-copy ingest from the device mapper's flat output arrays.
 
         Replaces ``Alignments.from_mapping_iterators`` (ref ``alignment.py:391-474``)
-        which looped over rammappy hit iterators; the TPU mapper already emits SoA.
+        which looped over rammappy hit iterators; the device mapper already emits SoA.
         ``mismatches`` stores the edit distance, mirroring the reference's ingest of
         rammappy's ``edit_distance`` into the ``mismatches`` field (:431).
         """

@@ -6,7 +6,7 @@ FASTA reading (:24-87, backed there by the rammappy Rust parser) and
 decompression and a thread-safe lazily-built mapper index (:177-191).  Here
 FASTA parsing is a module-level function backed by the native C++ ``hostio``
 parser when built (``native/hostio.cpp``) with a byte-splitting fallback, and
-the lazy index is the TPU contig minimizer index of
+the lazy index is the device contig minimizer index of
 :mod:`kaptive_tpu.ops.minimizer`.
 """
 
@@ -86,7 +86,7 @@ class FastaReader:
 
 @dataclass(slots=True, frozen=True)
 class GenomeAssembly:
-    r"""Contig container with transparent decompression and a lazy TPU minimizer index."""
+    r"""Contig container with transparent decompression and a lazy device minimizer index."""
 
     id: str
     contigs: Sequences
@@ -151,7 +151,7 @@ class GenomeAssembly:
     # -- lazy device index -------------------------------------------------
 
     def get_minimizer_index(self) -> Any:
-        r"""Lazily build and cache the TPU contig minimizer index
+        r"""Lazily build and cache the device contig minimizer index
         (the reference's lazy rammappy index, ``genome.py:177-191``)."""
         if not self._index_slot:
             with self._index_lock:

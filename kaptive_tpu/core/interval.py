@@ -13,7 +13,7 @@ breaks), which are mathematically equivalent to the reference's sequential
 single-linkage sweeps, while greedy overlap culling keeps the reference's exact
 order semantics with a vectorised inner comparison.  These run on host: interval
 counts in the typing pipeline are tiny (hundreds), far below device-dispatch
-breakeven; the O(N) contig-scale work stays on TPU in :mod:`kaptive_tpu.ops`.
+breakeven; the O(N) contig-scale work stays on the device in :mod:`kaptive_tpu.ops`.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ The compiler here runs in two phases: GenBank records parse into per-locus
 ``_LocusDraft`` rows first, then the drafts flatten into the SoA arrays with
 vectorised offsets/indices (``np.repeat`` instead of per-gene index loops).
 
-TPU addition: the compiled database carries a :class:`~kaptive_tpu.ops.mapper.GeneIndex`
+Device addition: the compiled database carries a :class:`~kaptive_tpu.ops.mapper.GeneIndex`
 — the static hash-sorted gene minimizer table plus 2-bit encoded gene codes —
 so the per-assembly mapping phase needs no DB-side preprocessing.  It is built
 lazily and cached inside the pickle artifact.

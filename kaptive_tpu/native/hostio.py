@@ -1,44 +1,56 @@
 r"""ctypes binding for the native host-IO library (``native/hostio.cpp``).
 
-Compiles the shared object on first use (g++ -O3, cached beside the package or
-in a temp dir); raises ImportError if no compiler is available so callers fall
-back to the pure-Python paths.
+Compiles the shared object on first use (``g++ -O3 -march=native``) into
+``build/`` at the repository root, keyed on a hash of the source, the compile
+command and the host CPU's feature flags, so a copied tree never loads an
+object built from other sources or for another CPU.  Raises ImportError if no
+compiler is available so callers fall back to the pure-Python paths.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent.parent.parent / "native" / "hostio.cpp"
+_REPO = Path(__file__).resolve().parent.parent.parent
+_SRC = _REPO / "native" / "hostio.cpp"
+_BUILD_DIR = _REPO / "build"
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
+
+
+def _cpu_flags() -> bytes:
+    try:
+        for line in Path("/proc/cpuinfo").read_bytes().splitlines():
+            if line.startswith((b"flags", b"Features")):
+                return line
+    except OSError:
+        pass
+    return b""
 
 
 def _build() -> Path:
-    candidates = [
-        Path(__file__).resolve().parent / "_hostio.so",
-        Path(tempfile.gettempdir()) / f"kaptive_tpu_hostio_{os.getuid()}.so",
-    ]
-    for so in candidates:
-        if so.exists() and so.stat().st_mtime >= _SRC.stat().st_mtime:
-            return so
-    err: Exception | None = None
-    for so in candidates:
-        try:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC", str(_SRC), "-o", str(so)],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-            return so
-        except Exception as e:  # no compiler / no write permission: try next
-            err = e
-    raise ImportError(f"Cannot build native hostio: {err}")
+    key = hashlib.sha256(
+        _SRC.read_bytes() + " ".join(_FLAGS).encode() + _cpu_flags()
+    ).hexdigest()[:16]
+    so = _BUILD_DIR / f"hostio-{key}.so"
+    if so.exists():
+        return so
+    try:
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run(
+            ["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
+            check=True, capture_output=True, timeout=120,
+        )
+        tmp.replace(so)
+    except Exception as e:  # no compiler / no write permission
+        raise ImportError(f"Cannot build native hostio: {e}") from e
+    return so
 
 
 if not _SRC.exists():

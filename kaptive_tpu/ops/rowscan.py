@@ -1,19 +1,16 @@
-r"""Pallas TPU kernel: fused minimizer scan + per-row compaction.
+r"""Row-compact minimizer scan: the device seeding path's scan stage in XLA.
 
-Replaces the XLA formulation of the contig-side minimizer scan
-(:func:`kaptive_tpu.ops.minimizer.minimizer_scan` + the full-length
-compaction scatter in ``ops/mapper._scan_compact_core``) for the typing hot
-path.  The XLA version streams ~60 full-genome arrays through HBM and pays a
-~9 ns/element scatter to compact 8M positions; this kernel does the whole
-scan — 2-bit k-mer build, canonical murmur3 hashing, ``w``-window minimum,
-minimizer selection and a butterfly lane-compaction — inside VMEM tiles, so
-HBM traffic is one read of the code stream plus the compact (rows, 32)
-output.  Semantics match ``minimizer_scan`` exactly (same selection rule,
+Fuses the contig-side minimizer scan (:func:`kaptive_tpu.ops.minimizer.minimizer_scan`)
+with a per-row compaction: 2-bit k-mer build, canonical murmur3 hashing,
+``w``-window minimum, minimizer selection and a butterfly lane-compaction,
+all as streaming elementwise work over a (rows, 128) view of the genome, so
+no full-genome gather or scatter is needed to compact the selected
+positions.  Semantics match ``minimizer_scan`` exactly (same selection rule,
 same hash, leftmost-on-tie window minimum); parity is pinned by
-``tests/test_scan_pallas.py`` against the host scan.
+``tests/test_rowscan.py`` against the host scan.
 
 Output layout ("row-compact"): the genome is viewed as rows of 128
-consecutive positions.  For each row the kernel emits up to ``SLOTS`` = 64
+consecutive positions.  For each row the scan emits up to ``SLOTS`` = 64
 selected minimizers:
 
 - ``hashes`` (B, R, 64) uint32 — canonical k-mer hash, ``0xFFFFFFFF`` pads;
@@ -28,10 +25,9 @@ megabase overflows (P(X>32 | λ≈23.3) ≈ 3e-2 per 128-base row), which made
 the whole-genome host fallback fire on essentially every real assembly; at
 64 slots (P(X>64) < 1e-12) overflow needs adversarial repeat content.
 
-Reference mapping: this is the TPU-native replacement for the minimizer
-indexing half of the wrapped Rust ``rammappy`` mapper
-(``/root/reference/src/kaptive/core/genome.py:177-191``); the reference's own
-CPU sketching kernels live at ``core/kmers.py:822-1155``.
+Reference mapping: this replaces the minimizer indexing half of the wrapped
+Rust ``rammappy`` mapper (``/root/reference/src/kaptive/core/genome.py:177-191``);
+the reference's own CPU sketching kernels live at ``core/kmers.py:822-1155``.
 """
 
 from __future__ import annotations
@@ -44,17 +40,11 @@ import numpy as np
 
 SLOTS = 64  # per-row output capacity
 ROW = 128  # positions per row (= lane count)
-TILE_ROWS = 1024  # rows computed per grid step (128K positions)
-# The scan only reads k+w-2 (= 23 at defaults) positions past a tile edge, so
-# 8 halo rows (1024 positions) is ample; the original 128 rows cost ~25% extra
-# DMA + compute per tile for nothing.
+# The scan only reads k+w-2 (= 23 at defaults) positions past either end,
+# so 8 sentinel rows (1024 positions) on each side are ample.
 HALO_ROWS = 8
 PAD_POS = HALO_ROWS * ROW  # position padding added on each side of the stream
-
-def _u32_max():
-    r"""uint32 max, materialised inside the trace (a module-level jnp scalar
-    would be captured as an external constant, which pallas_call rejects)."""
-    return jnp.uint32(0xFFFFFFFF)
+U32_MAX = 0xFFFFFFFF
 
 
 def _shift_next(x, col):
@@ -67,32 +57,6 @@ def _shift_prev(x, col):
     r"""``y[p] = x[p-1]`` in flat position order over a (rows, 128) tile."""
     rl = jnp.roll(x, 1, axis=1)
     return jnp.where(col > 0, rl, jnp.roll(rl, 1, axis=0))
-
-
-def _as_signed(x):
-    r"""uint32 -> int32 preserving unsigned order (XOR sign bias + bitcast).
-
-    Mosaic has no vector ``arith.minui``/``cmpi ult`` lowering on v5e; all
-    unsigned comparisons in the kernel go through this order-preserving signed
-    view instead (bit-identical results, and the XLA mirror shares the code).
-    """
-    return jax.lax.bitcast_convert_type(x ^ jnp.uint32(0x80000000), jnp.int32)
-
-
-def _from_signed(x):
-    return jax.lax.bitcast_convert_type(x, jnp.uint32) ^ jnp.uint32(0x80000000)
-
-
-def _umin(a, b):
-    return _from_signed(jnp.minimum(_as_signed(a), _as_signed(b)))
-
-
-def _ule(a, b):
-    return _as_signed(a) <= _as_signed(b)
-
-
-def _ult(a, b):
-    return _as_signed(a) < _as_signed(b)
 
 
 def _mix32(x):
@@ -117,11 +81,8 @@ def _scan_tile(codes, col, k: int, w: int, row0: jax.Array | int, length: int):
     ``minimizer_scan`` on the flattened tile (edge rows are garbage — callers
     only read the interior rows).
     """
-    # All three sweeps below run as ``fori_loop``s rather than unrolled Python
-    # loops: unrolling k=15 + 2*w=20 full-tile shift steps emitted ~145k MLIR
-    # vector ops for a (1280, 128) tile, which Mosaic takes minutes to
-    # compile.  The loop forms keep the IR a few hundred ops with identical
-    # runtime work (each iteration is the same whole-tile vector step).
+    # All three sweeps run as ``fori_loop``s: unrolling k=15 + 2*w=20
+    # full-tile shift steps bloats the program for the same runtime work.
     gpos = jax.lax.broadcasted_iota(jnp.int32, codes.shape, 0) * ROW + col + row0 * ROW
     bad = (codes >= 4).astype(jnp.int32)
 
@@ -142,22 +103,22 @@ def _scan_tile(codes, col, k: int, w: int, row0: jax.Array | int, length: int):
         0, k, kmer_body, (codes, bad, zero_u, zero_u, zero_i)
     )
     valid = (badsum == 0) & (gpos >= 0) & (gpos < length - k + 1)
-    canonical = _umin(fwd, rev)
-    strands = _ule(fwd, rev)
-    hashes = jnp.where(valid, _mix32(canonical), _u32_max())
+    canonical = jnp.minimum(fwd, rev)
+    strands = fwd <= rev
+    hashes = jnp.where(valid, _mix32(canonical), jnp.uint32(U32_MAX))
 
     # Window minimum over w k-mer starts, tracking the winning offset
     # (leftmost-on-tie: strict < favours the earlier position).
     def win_body(j, c):
         hcur, best, best_off = c
         hcur = _shift_next(hcur, col)
-        take = _ult(hcur, best)
+        take = hcur < best
         best = jnp.where(take, hcur, best)
         best_off = jnp.where(take, j, best_off)
         return (hcur, best, best_off)
 
     _, best, best_off = jax.lax.fori_loop(1, w, win_body, (hashes, hashes, zero_i))
-    window_valid = (best != _u32_max()) & (gpos >= 0) & (gpos < length - k - w + 2)
+    window_valid = (best != jnp.uint32(U32_MAX)) & (gpos >= 0) & (gpos < length - k - w + 2)
 
     # Position p is selected iff a window starting at p-d (d in [0,w)) picked
     # it, i.e. that window's winning offset equals d.
@@ -198,8 +159,7 @@ def compact_lanes(selected, payloads, lanes: int, out_slots: int):
     counts = jnp.sum(sel_i, axis=-1, keepdims=True)
 
     dist = jnp.where(selected, col - rank, 0)
-    # The mask is carried as int32 0/1: Mosaic has no vreg roll/bitcast for
-    # i1 vectors, so rolling a bool mask fails to lower on TPU.
+    # The live mask is carried as int32 0/1 so it moves with the payloads.
     live = sel_i
     vals = list(payloads)
     for b in range(lanes.bit_length() - 1):
@@ -222,55 +182,14 @@ def compact_lanes(selected, payloads, lanes: int, out_slots: int):
 
 def _compact_rows(selected, hashes, aux):
     live, (h, a), counts = compact_lanes(selected, (hashes, aux), ROW, SLOTS)
-    h = jnp.where(live, h, _u32_max())
+    h = jnp.where(live, h, jnp.uint32(U32_MAX))
     a = jnp.where(live, a, -1)
     return h, a, counts
 
 
-def _rowcompact_kernel(codes_hbm, h_out, a_out, c_out, codes_vmem, sem, *, k: int, w: int):
-    b = pl.program_id(0)
-    i = pl.program_id(1)
-    dma = pltpu.make_async_copy(
-        codes_hbm.at[b, pl.ds(i * TILE_ROWS, TILE_ROWS + 2 * HALO_ROWS), :],
-        codes_vmem,
-        sem,
-    )
-    dma.start()
-    dma.wait()
-    codes = codes_vmem[:].astype(jnp.int32)
-    col = jax.lax.broadcasted_iota(jnp.int32, codes.shape, 1)
-    n_tiles = pl.num_programs(1)
-    length = n_tiles * TILE_ROWS * ROW
-    selected, hashes, strands = _scan_tile(
-        codes, col, k, w, i * TILE_ROWS - HALO_ROWS, length
-    )
-    # Interior rows only (the halo rows belong to neighbouring tiles).
-    sel_m = selected[HALO_ROWS : HALO_ROWS + TILE_ROWS]
-    h_m = hashes[HALO_ROWS : HALO_ROWS + TILE_ROWS]
-    st_m = strands[HALO_ROWS : HALO_ROWS + TILE_ROWS]
-    # NB: do not slice ``col`` itself — a lane-iota is sublane-replicated in
-    # Mosaic's vector layout and slicing its sublane axis crashes the
-    # ApplyVectorLayout pass; regenerate the iota at the interior shape.
-    col_m = jax.lax.broadcasted_iota(jnp.int32, (TILE_ROWS, ROW), 1)
-    aux = col_m | (st_m.astype(jnp.int32) << 7)
-    hc, ac, counts = _compact_rows(sel_m, h_m, aux)
-    h_out[0] = hc
-    a_out[0] = ac
-    c_out[0] = counts
-
-
-try:  # pallas import kept lazy-safe for CPU-only environments
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
-
-
 @functools.partial(jax.jit, static_argnames=("k", "w"))
-def rowcompact_scan_tpu(codes_padded: jax.Array, k: int, w: int):
-    r"""Run the Pallas row-compact scan over a batch of padded code streams.
+def rowcompact_scan_xla(codes_padded: jax.Array, k: int, w: int):
+    r"""Row-compact minimizer scan over a batch of padded code streams.
 
     Args:
         codes_padded: (B, R_pad, 128) uint8 codes with ``HALO_ROWS`` rows of
@@ -279,47 +198,6 @@ def rowcompact_scan_tpu(codes_padded: jax.Array, k: int, w: int):
 
     Returns:
         (hashes (B, R, 64) uint32, aux (B, R, 64) int32, counts (B, R, 1)).
-    """
-    B, r_pad, _ = codes_padded.shape
-    r_total = r_pad - 2 * HALO_ROWS
-    n_tiles = r_total // TILE_ROWS
-    if n_tiles * TILE_ROWS != r_total:
-        # A silent floor would leave the output buffers uninitialized (zero
-        # grid steps for sub-tile streams) and read as garbage minimizers;
-        # forced-impl callers must hit this loudly instead.
-        raise ValueError(
-            f"stream rows ({r_total}) must be a multiple of TILE_ROWS "
-            f"({TILE_ROWS}); bucket-pad the stream or use the XLA scan"
-        )
-    kern = functools.partial(_rowcompact_kernel, k=k, w=w)
-    return pl.pallas_call(
-        kern,
-        grid=(B, n_tiles),
-        out_shape=(
-            jax.ShapeDtypeStruct((B, r_total, SLOTS), jnp.uint32),
-            jax.ShapeDtypeStruct((B, r_total, SLOTS), jnp.int32),
-            jax.ShapeDtypeStruct((B, r_total, 1), jnp.int32),
-        ),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=(
-            pl.BlockSpec((1, TILE_ROWS, SLOTS), lambda b, i: (b, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TILE_ROWS, SLOTS), lambda b, i: (b, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TILE_ROWS, 1), lambda b, i: (b, i, 0), memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((TILE_ROWS + 2 * HALO_ROWS, ROW), jnp.uint8),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )(codes_padded)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "w"))
-def rowcompact_scan_xla(codes_padded: jax.Array, k: int, w: int):
-    r"""Pure-XLA mirror of :func:`rowcompact_scan_tpu` (CPU tests, fallback).
-
-    Identical output contract; implemented with the same flat-shift scan and
-    butterfly compaction expressed as full-length XLA ops (the compaction is
-    streaming elementwise work, so this is also the fastest non-Pallas form).
     """
     B, r_pad, _ = codes_padded.shape
     r_total = r_pad - 2 * HALO_ROWS
@@ -341,14 +219,8 @@ def rowcompact_scan_xla(codes_padded: jax.Array, k: int, w: int):
 
 
 def pad_codes_for_scan(codes: np.ndarray) -> np.ndarray:
-    r"""Host helper: (L,) uint8 codes -> (R_pad, 128) with sentinel halo rows."""
-    L = codes.shape[0]
-    assert L % (TILE_ROWS * ROW) == 0, "bucket-pad the stream to a tile multiple"
-    return pad_codes_for_scan_any(codes)
-
-
-def pad_codes_for_scan_any(codes: np.ndarray) -> np.ndarray:
-    r"""Like :func:`pad_codes_for_scan` for any row-multiple length (XLA path)."""
+    r"""Host helper: (L,) uint8 codes (L a multiple of 128) -> (R_pad, 128)
+    with sentinel halo rows."""
     body = codes.reshape(-1, ROW)
     pad = np.full((HALO_ROWS, ROW), 4, dtype=np.uint8)
     return np.concatenate([pad, body, pad], axis=0)
@@ -395,28 +267,3 @@ def unpack_sparse_to_padded(
     body = codes.reshape(-1, ROW)
     pad = jnp.full((HALO_ROWS, ROW), 4, dtype=jnp.uint8)
     return jnp.concatenate([pad, body, pad], axis=0)
-
-
-def default_device_is_tpu() -> bool:
-    r"""True when jitted ops run on a TPU device.
-
-    ``jax.default_backend()`` is not enough: the test environment pins
-    ``jax_default_device`` to a CPU device while a TPU backend stays
-    registered, and Pallas TPU kernels cannot lower for the CPU device.
-    """
-    try:
-        dev = jax.config.jax_default_device
-        if dev is None:
-            dev = jax.devices()[0]
-        return dev.platform not in ("cpu",)
-    except Exception:  # pragma: no cover
-        return False
-
-
-def supports_pallas_scan(length: int) -> bool:
-    r"""True when the fused TPU kernel can run for this stream length."""
-    if not _HAVE_PALLAS:
-        return False
-    if length % (TILE_ROWS * ROW) != 0:
-        return False
-    return default_device_is_tpu()

@@ -1,10 +1,10 @@
-r"""Multi-chip parallelism: device meshes, sharded typing steps, batch pipelines.
+r"""Multi-device parallelism: device meshes, sharded typing steps, batch pipelines.
 
 The reference is single-process CPU (SURVEY.md §2.3); these components are
-designed fresh for TPU: data parallelism over assemblies via ``shard_map``
-with the compiled database replicated, plus an optional gene-table-sharded
-mode whose per-locus scores merge with ``psum`` over the ICI before best-locus
-selection.
+designed fresh for accelerators: data parallelism over assemblies via
+``shard_map`` with the compiled database replicated, plus an optional
+gene-table-sharded mode whose per-locus scores merge with ``psum`` before
+best-locus selection.
 """
 
 from kaptive_tpu.parallel.mesh import make_mesh

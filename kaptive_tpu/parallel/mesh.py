@@ -1,10 +1,10 @@
 r"""Device mesh construction helpers.
 
 Builds 1-D or 2-D ``jax.sharding.Mesh`` layouts with a ``data`` axis
-(assembly batches) and an optional ``model`` axis (gene-table shards).  On
-multi-host slices the caller is expected to have run
-``jax.distributed.initialize`` first; collectives ride ICI within a slice and
-DCN across hosts automatically via XLA.
+(assembly batches) and an optional ``model`` axis (gene-table shards).  In a
+multi-process run the caller is expected to have run
+``jax.distributed.initialize`` first (see :mod:`kaptive_tpu.parallel.multihost`);
+XLA lowers the collectives to NCCL.
 """
 
 from __future__ import annotations

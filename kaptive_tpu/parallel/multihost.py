@@ -1,14 +1,14 @@
 r"""Multi-host execution scaffolding: process init, input sharding, shard writers.
 
-BASELINE config 5 ("1000+ assemblies across a multi-host pod slice") needs
+BASELINE config 5 ("1000+ assemblies across four H100 cards") needs
 three host-side pieces on top of the device sharding in
 :mod:`kaptive_tpu.parallel.typing`:
 
 1. :func:`initialize_distributed` — idempotent ``jax.distributed.initialize``
    from explicit args or the standard env (``JAX_COORDINATOR_ADDRESS``,
-   ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``).  After it, ``jax.devices()``
-   spans the slice and the mesh builders in :mod:`kaptive_tpu.parallel.mesh`
-   lay collectives over ICI within a host and DCN across hosts.
+   ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``, ``JAX_LOCAL_DEVICE_IDS``).
+   After it, ``jax.devices()`` spans every process's cards and the mesh
+   builders in :mod:`kaptive_tpu.parallel.mesh` lay collectives over them.
 2. :func:`shard_inputs` — deterministic round-robin assignment of input files
    to processes, so every host streams a disjoint subset (no coordination
    needed beyond the rank).
@@ -19,7 +19,8 @@ three host-side pieces on top of the device sharding in
    same property per file — ``/root/reference/docs/serotyping/outputs.md``).
 
 The logic is pure host code and unit-tested on a single process
-(``tests/test_multihost.py``); a real pod run only adds the coordinator env.
+(``tests/test_multihost.py``); a real multi-process run only adds the
+coordinator env.
 """
 
 from __future__ import annotations
@@ -36,12 +37,16 @@ def initialize_distributed(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids: list[int] | None = None,
 ) -> bool:
     r"""Initialise JAX multi-process mode once; returns True when distributed.
 
     Falls back to single-process when no coordinator is configured (arg or
     ``JAX_COORDINATOR_ADDRESS`` env) — so the same entry path serves laptops,
-    one chip, and pod slices.
+    one card, and several hosts.  ``local_device_ids`` (or the
+    comma-separated ``JAX_LOCAL_DEVICE_IDS`` env) gives this process its own
+    cards, so several processes on one host each own one card instead of all
+    reserving every card's memory.
     """
     global _DISTRIBUTED_READY
     if _DISTRIBUTED_READY:
@@ -49,12 +54,15 @@ def initialize_distributed(
     coordinator_address = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if not coordinator_address:
         return False
+    if local_device_ids is None and os.environ.get("JAX_LOCAL_DEVICE_IDS"):
+        local_device_ids = [int(x) for x in os.environ["JAX_LOCAL_DEVICE_IDS"].split(",")]
     import jax
 
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes or int(os.environ.get("JAX_NUM_PROCESSES", "1")),
         process_id=process_id if process_id is not None else int(os.environ.get("JAX_PROCESS_ID", "0")),
+        local_device_ids=local_device_ids,
     )
     _DISTRIBUTED_READY = True
     return True

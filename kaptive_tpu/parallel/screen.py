@@ -4,7 +4,7 @@ This is the whole-pipeline-jit realisation of the serotyper's scoring phase
 (ref ``serotyping/core.py:164-207``) over a *batch of assemblies*: device
 minimizer scan -> binary-search lookup in the (replicated or sharded) DB gene
 minimizer table -> per-gene anchor tallies -> per-locus scores via a one-hot
-matmul on the MXU -> completeness-cubed weighting -> best-locus argmax.
+matmul -> completeness-cubed weighting -> best-locus argmax.
 
 Sharding contract (SURVEY.md §2.3): assemblies shard over the ``data`` mesh
 axis; the gene minimizer table optionally shards by hash range over the
@@ -103,7 +103,7 @@ def locus_screen_batch(
 def _score_from_tallies(tallies, gene_locus_onehot, expected_per_locus, gene_minimizer_counts):
     # Per-gene pseudo-coverage: matched minimizers / gene minimizers, clipped.
     covs = jnp.clip(tallies / gene_minimizer_counts[None, :], 0.0, 1.0)
-    # Locus score = sum of expected-gene coverages (MXU matmul), with the
+    # Locus score = sum of expected-gene coverages (one matmul), with the
     # reference's completeness^3 weighting (fraction of expected genes hit).
     locus_scores = jnp.dot(covs, gene_locus_onehot, preferred_element_type=jnp.float32)
     hit = (tallies > 0).astype(jnp.float32)
@@ -166,8 +166,8 @@ def sharded_locus_screen(
 
     # device_put host numpy straight onto the mesh with explicit shardings.
     # Never go through a default-device jnp.asarray first: the default device
-    # may be a different platform than the mesh (e.g. a real TPU while the
-    # mesh is a virtual CPU mesh), and a cross-platform reshard can stall.
+    # may be a different platform than the mesh (e.g. a GPU while the mesh is
+    # a virtual CPU mesh), and a cross-platform reshard can stall.
     def put(x, spec):
         return jax.device_put(np.asarray(x), NamedSharding(mesh, spec))
 

@@ -1,12 +1,12 @@
 r"""Batch-vectorised typing decisions: score, reconstruct, classify, phenotype, call.
 
-This is the decision layer between the TPU mapper output and the final
+This is the decision layer between the device mapper output and the final
 :class:`~kaptive_tpu.serotyping.models.SerotypingResult` objects.  It matches
 the *decision semantics* of the reference engine
 (``/root/reference/src/kaptive/serotyping/core.py:157-459``: coverage filter,
 best-hit ranking, completeness-cubed locus scoring, priority overlap culling,
 spatial piece reconstruction, edge/truncation/novelty gene states, phenotype
-rules and typeability) but is formulated for the batched TPU pipeline rather
+rules and typeability) but is formulated for the batched device pipeline rather
 than a per-genome pass:
 
 - **One flat hit table** spans the whole assembly batch; every hit carries an

@@ -188,7 +188,7 @@ class Type(Command):
             "--seed-mode", choices=("auto", "host", "device"), default=None, metavar="",
             help="Where the mapper's seed/chain stages run: 'host' = native C scan "
             "on the ingest pool (less PCIe traffic + device time), 'device' = fully "
-            "device-resident Pallas pipeline, 'auto' = host on accelerator backends "
+            "device-resident XLA pipeline, 'auto' = host on a GPU "
             "(default: auto; both modes produce identical results)",
         )
 

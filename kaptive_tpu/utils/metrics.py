@@ -1,19 +1,16 @@
 r"""Process-global pipeline counters (fallbacks, kernel impl choices, DP shapes).
 
 Round-2 shipped a regressed benchmark with no way to tell which code path had
-actually run (silent host fallbacks, silent Pallas→XLA degrades, unbounded DP
-bucket-shape growth).  This module is the antidote: cheap named counters and
+actually run (silent host fallbacks, unbounded DP bucket-shape growth).  This module is the antidote: cheap named counters and
 value-sets that the hot paths bump unconditionally (a dict update — no flag
 gating needed) and ``bench.py`` / ``--profile`` print next to the phase table.
 
 Conventions used by the pipeline:
 
-- ``map.scan_impl.{pallas,xla}``          — batches run per scan implementation
-- ``map.scan_fallback``                    — Mosaic compile failures that degraded to XLA
 - ``map.host_fallback.{row_overflow,candidates,anchors,chains}``
                                            — genomes reseeded on host, by cause
 - ``map.device_chained`` / ``map.host_chained`` — genomes chained on device vs host
-- ``swg.dispatch.{pallas,lax}``            — DP bucket launches per kernel impl
+- ``swg.dispatch.{cuda,lax}``              — DP bucket launches per kernel impl
 - ``swg.offlattice``                       — pairs that fell outside a frozen shape lattice
 - ``swg.shape.<rows>x<w>x<b>``             — distinct compiled DP bucket shapes (set)
 """
@@ -41,7 +38,7 @@ def count(name: str, n: int = 1) -> None:
 def record_shape(kind: str, *dims: int) -> bool:
     r"""Record a compiled-shape key; returns True the first time it is seen.
 
-    A True return means the upcoming dispatch will trigger a fresh XLA/Mosaic
+    A True return means the upcoming dispatch will trigger a fresh XLA
     compile (unless the persistent cache already holds it) — callers count it
     so the bench output shows steady-state compile churn.
     """

@@ -1,16 +1,16 @@
-r"""Per-phase timers and TPU trace capture.
+r"""Per-phase timers and device trace capture.
 
 The reference has no profiling at all — observability is a verbose flag and a
 ``\r`` progress counter (``/root/reference/src/kaptive/cli.py:315-346``).  For
-a TPU framework that is not enough: the pipeline is a chain of device
+an accelerator pipeline that is not enough: it is a chain of device
 dispatches and host glue, and knowing which phase dominates decides where the
-next Pallas kernel goes.  This module adds
+next kernel goes.  This module adds
 
 - :func:`phase_timer` — a nestable context manager accumulating wall time per
   named phase (enabled with ``$KAPTIVE_PROFILE=1`` or ``--profile``; zero
   overhead otherwise: a single dict lookup);
 - :func:`phase_report` — one stderr line per phase (count, total, mean);
-- :func:`device_trace` — wraps ``jax.profiler.trace`` so a full XLA/TPU trace
+- :func:`device_trace` — wraps ``jax.profiler.trace`` so a full XLA/GPU trace
   (viewable in TensorBoard/XProf) can be captured around any region with
   ``$KAPTIVE_TRACE_DIR=/path``.
 """

@@ -3,7 +3,7 @@
 // Replaces the data-loader role of the reference's Rust rammappy FASTA parser
 // (/root/reference/src/kaptive/core/genome.py:44-46) for the multi-host
 // streaming input pipeline: FASTA parsing and 2-bit DNA encoding at memory
-// bandwidth, so CPU-side ingest never starves the TPU.
+// bandwidth, so CPU-side ingest never starves the device.
 //
 // C ABI (ctypes-friendly), two-pass usage:
 //   1. fasta_scan(data, n, &n_records, &total_seq_len)
@@ -235,7 +235,7 @@ int64_t build_contig_stream(const uint8_t* seq, const int64_t* offsets,
 // minimizer against the sorted gene-table hash array (lower/upper bound,
 // occurrence count capped at max_occ) — the host half of the mapper's
 // seed stage, so ingest threads can hand the device pre-seeded chains and the
-// TPU spends its cycles on the DP sweeps instead of the gather-bound match.
+// device spends its cycles on the DP sweeps instead of the gather-bound match.
 //
 //   codes:  [L] uint8 base codes (0-3 valid, >=4 sentinel), contig stream
 //   table:  [T] uint32 sorted ascending canonical-minimizer hashes

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measure stripped-line similarity between repo files and same-named reference files.
 
-Mirrors the judge's methodology from VERDICT round 4: strip comments/docstrings/blank
+Method: strip comments/docstrings/blank
 lines, then count repo lines that fall inside contiguous matching blocks (difflib
 SequenceMatcher) against the reference file, as a fraction of repo lines.
 """

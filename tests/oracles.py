@@ -1,4 +1,4 @@
-"""Sequential DP oracle used to validate the vectorised TPU kernels.
+"""Sequential DP oracle used to validate the vectorised device kernels.
 
 This is an independent cell-at-a-time implementation of the banded local
 Smith-Waterman-Gotoh recurrence with the semantics documented in

@@ -8,7 +8,7 @@ reference engine runnable read-only from ``/root/reference``:
 
 1. ``numba`` is stubbed with identity decorators (kernels run as plain
    Python — fine at test scale);
-2. ``rammappy`` is stubbed with an ``Aligner`` that replays OUR TPU mapper's
+2. ``rammappy`` is stubbed with an ``Aligner`` that replays OUR device mapper's
    hits through rammappy's hit-object interface, so the reference's
    ``Alignments.from_mapping_iterators`` ingests exactly what our pipeline saw;
 3. our compiled :class:`kaptive_tpu.db.Database` is converted field-for-field

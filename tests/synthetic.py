@@ -36,6 +36,35 @@ def revcomp(seq: bytes) -> bytes:
     return seq.translate(bytes.maketrans(b"ACGTacgt", b"TGCAtgca"))[::-1]
 
 
+ASSEMBLY_KINDS = ("clean", "diverged", "fragmented", "draft")
+
+
+def compose_assembly(rng, kind: str, locus: bytes, flank: int) -> bytes:
+    """One assembly's FASTA bytes holding ``locus`` in random background.
+
+    ``kind`` is one of :data:`ASSEMBLY_KINDS`: clean single contig, 1%-diverged
+    locus, locus split mid-way across two contigs, or a draft (0.5% subs, ~24
+    roughly equal contigs, so the locus spans a contig boundary or two).
+    """
+    if kind == "diverged":
+        locus = mutate_dna(rng, locus, sub_rate=0.01)
+    elif kind == "draft":
+        locus = mutate_dna(rng, locus, sub_rate=0.005)
+    contig = random_dna(rng, flank) + locus + random_dna(rng, flank)
+    if kind in ("clean", "diverged"):
+        return b">c1\n%s\n" % contig
+    if kind == "fragmented":
+        cut = flank + len(locus) // 2
+        return b">c1\n%s\n>c2\n%s\n" % (contig[:cut], contig[cut:])
+    n_pieces = 24
+    step = len(contig) // n_pieces
+    parts = [
+        contig[j * step : (j + 1) * step if j < n_pieces - 1 else len(contig)]
+        for j in range(n_pieces)
+    ]
+    return b"".join(b">c%d\n%s\n" % (j + 1, p) for j, p in enumerate(parts))
+
+
 def make_orf(rng, n_codons: int) -> bytes:
     """Random open reading frame: ATG + non-stop codons + stop codon."""
     stops = {b"TAA", b"TAG", b"TGA"}

@@ -1,6 +1,6 @@
 """Vectorised decision-layer primitives vs brute-force oracles + batch scaling.
 
-VERDICT r4 weak #2: the decision layer held three per-assembly Python loops
+The decision layer once held three per-assembly Python loops
 (is_inside piece sweep, expected-cluster mask build, phenotype rule
 application).  These tests lock the vectorised replacements to straightforward
 loop oracles on randomized inputs, and assert the decision phase stays

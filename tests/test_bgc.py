@@ -25,7 +25,7 @@ from kaptive_tpu.core.genome import GenomeAssembly
 from kaptive_tpu.core.interval import Intervals
 from kaptive_tpu.core.seq import Sequences
 from kaptive_tpu.db import Database
-from tests.synthetic import make_orf, make_synthetic_db, random_dna, revcomp
+from synthetic import make_orf, make_synthetic_db, random_dna, revcomp
 
 
 @pytest.fixture(scope="module")

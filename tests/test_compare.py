@@ -12,7 +12,7 @@ from kaptive_tpu.core.interval import Intervals
 from kaptive_tpu.core.seq import Sequences
 from kaptive_tpu.db import Database
 from kaptive_tpu.plotting import LocusComparisonPlotter, connected_components
-from tests.synthetic import make_synthetic_db
+from synthetic import make_synthetic_db
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,7 @@ import pytest
 
 from kaptive_tpu.db import Database, DatabaseError, DatabaseManager, DatabaseMetadata, Phenotypes
 from kaptive_tpu.db.genbank import iter_records, parse_location, write_genbank
-from tests.synthetic import make_synthetic_db
+from synthetic import make_synthetic_db
 
 
 @pytest.fixture()

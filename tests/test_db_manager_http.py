@@ -1,4 +1,4 @@
-"""DatabaseManager network lifecycle against a local HTTP server (VERDICT r3 #6).
+"""DatabaseManager network lifecycle against a local HTTP server.
 
 The reference's own suite exercises the real download+compile path
 (``/root/reference/tests/test_adversarial.py:43-45``); with zero egress here,
@@ -19,7 +19,7 @@ import pytest
 
 from kaptive_tpu.db import Database, DatabaseManager
 from kaptive_tpu.db.models import DatabaseError
-from tests.synthetic import make_synthetic_db
+from synthetic import make_synthetic_db
 
 OWNER, REPO, BRANCH, DBNAME = "testowner", "test-db-repo", "main", "TestDB"
 

@@ -156,7 +156,7 @@ def test_viterbi_bucket_padding_invariance():
 
     import kaptive_tpu.ops.minimizer as minz
     from kaptive_tpu.bgc import genefinder as gf
-    from tests.synthetic import make_orf
+    from synthetic import make_orf
 
     rng = np.random.default_rng(0)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)

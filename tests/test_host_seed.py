@@ -12,7 +12,7 @@ import os
 import numpy as np
 import pytest
 
-from tests.synthetic import make_genome_from_locus, make_synthetic_db, random_dna, revcomp
+from synthetic import make_genome_from_locus, make_synthetic_db, random_dna, revcomp
 
 
 def _native():

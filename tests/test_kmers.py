@@ -10,7 +10,7 @@ from kaptive_tpu.core.kmers import (
     splitmix64,
 )
 from kaptive_tpu.core.seq import Sequences
-from tests.synthetic import mutate_dna, random_dna, revcomp
+from synthetic import mutate_dna, random_dna, revcomp
 
 
 def _ref_fracminhash(seq: bytes, k=21, scaled=100):

@@ -9,7 +9,7 @@ from kaptive_tpu.core.genome import GenomeAssembly
 from kaptive_tpu.core.seq import Sequences
 from kaptive_tpu.ops.mapper import GeneIndex, MapperParams, map_genes
 from kaptive_tpu.ops.minimizer import build_minimizer_set
-from tests.synthetic import mutate_dna, random_dna, revcomp
+from synthetic import mutate_dna, random_dna, revcomp
 
 
 @pytest.fixture(scope="module")
@@ -243,7 +243,7 @@ def test_device_match_chain_parity_with_host(rng):
     bs, rl, iters = gidx.device_lookup
     rows_h, rows_a, rows_c, _ = _rowcompact_batch(
         jnp.asarray(pb[None]), jnp.asarray(vb[None]),
-        length=L, k=gidx.k, w=gidx.w, impl="xla",
+        length=L, k=gidx.k, w=gidx.w,
     )
     anchors_d, counts_d = _match_rows_batch(
         rows_h, rows_a, rows_c, th, tg, tp, ts, bs, rl, gidx.device_bloom,

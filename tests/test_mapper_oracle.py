@@ -1,4 +1,4 @@
-"""Independent hit-level oracle for the device mapper (VERDICT r3 item 4).
+"""Independent hit-level oracle for the device mapper.
 
 The golden harness proves everything downstream of the mapper byte-identical,
 but it feeds BOTH engines our mapper's hits — a systematic mapper bias

@@ -1,6 +1,6 @@
 """Adversarial mapq panel: genomes whose cull ranking is mapq-sensitive.
 
-VERDICT r4 missing #1 / weak #6: mapq feeds the overlap-cull ranking
+mapq feeds the overlap-cull ranking
 (``analysis.py``: lexsort keys score, matches, mapq), so a divergent mapq
 convention could flip typing calls on repeat-heavy real data.  This panel
 builds the geometries where that ranking actually matters — tandem gene

@@ -18,12 +18,11 @@ def test_dryrun_multichip_16_devices():
     env.update(
         JAX_PLATFORMS="cpu",
         XLA_FLAGS="--xla_force_host_platform_device_count=16",
-        KAPTIVE_TPU_INTERPRET="1",
         PYTHONPATH=str(repo_root),
     )
     r = subprocess.run(
         [sys.executable, "-c",
-         "import __graft_entry__ as g; g.dryrun_multichip(16)"],
+         "import jax, __graft_entry__ as g; g.dryrun_multichip(16, jax.devices('cpu'))"],
         cwd=repo_root, env=env, capture_output=True, timeout=900,
     )
     assert r.returncode == 0, r.stderr.decode()[-3000:]

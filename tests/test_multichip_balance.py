@@ -1,4 +1,4 @@
-"""Multi-chip work-partition balance at bench-scale DB (VERDICT r4 weak #5).
+"""Multi-device work-partition balance at bench-scale DB.
 
 Correctness of the sharded pipeline is already bit-asserted
 (tests/test_parallel.py, MULTICHIP dryrun); what was missing is evidence that

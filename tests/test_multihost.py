@@ -4,6 +4,7 @@ import io
 import json
 
 import numpy as np
+import pytest
 
 from kaptive_tpu.parallel.multihost import (
     ShardedJsonlWriter,
@@ -35,6 +36,33 @@ def test_shard_path_naming(tmp_path):
 def test_initialize_without_coordinator_is_single_process(monkeypatch):
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
     assert initialize_distributed() is False
+
+
+@pytest.mark.parametrize("arg,env,want", [
+    ([1], None, [1]),
+    (None, "2,3", [2, 3]),
+    (None, None, None),
+])
+def test_initialize_passes_local_device_ids(monkeypatch, arg, env, want):
+    import jax
+
+    from kaptive_tpu.parallel import multihost
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize", lambda **kw: seen.update(kw))
+    monkeypatch.setattr(multihost, "_DISTRIBUTED_READY", False)
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:12345")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+    monkeypatch.setenv("JAX_PROCESS_ID", "2")
+    if env is None:
+        monkeypatch.delenv("JAX_LOCAL_DEVICE_IDS", raising=False)
+    else:
+        monkeypatch.setenv("JAX_LOCAL_DEVICE_IDS", env)
+    assert initialize_distributed(local_device_ids=arg) is True
+    assert seen == dict(
+        coordinator_address="localhost:12345", num_processes=4, process_id=2,
+        local_device_ids=want,
+    )
 
 
 def test_sharded_writer_resume(tmp_path):

@@ -27,7 +27,6 @@ WORKER = r"""
 import glob, os, sys
 rank = int(sys.argv[1]); port = sys.argv[2]; fixdir = sys.argv[3]; outdir = sys.argv[4]
 repo = sys.argv[5]
-os.environ.setdefault("KAPTIVE_TPU_INTERPRET", "1")
 os.environ["JAX_COORDINATOR_ADDRESS"] = "localhost:%s" % port
 os.environ["JAX_NUM_PROCESSES"] = "2"
 os.environ["JAX_PROCESS_ID"] = str(rank)

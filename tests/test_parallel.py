@@ -15,7 +15,7 @@ from kaptive_tpu.core.genome import GenomeAssembly
 from kaptive_tpu.db import Database
 from kaptive_tpu.parallel import make_mesh, locus_screen_batch, sharded_locus_screen
 from kaptive_tpu.parallel.screen import ScreenTables, encode_assemblies_to_batch
-from tests.synthetic import make_genome_from_locus, make_synthetic_db
+from synthetic import make_genome_from_locus, make_synthetic_db
 
 
 @pytest.fixture(scope="module")

@@ -1,4 +1,4 @@
-"""Byte-level SVG snapshots for the plotting layer (VERDICT r4 next #8).
+"""Byte-level SVG snapshots for the plotting layer.
 
 The TSV/JSONL outputs are regression-locked by the golden suite; these tests
 do the same for the visual layer: the serotyping locus diagram and the

@@ -24,7 +24,7 @@ from kaptive_tpu.plotting import (
     gene_arrow_points,
 )
 from kaptive_tpu.serotyping import Serotyper
-from tests.synthetic import make_genome_from_locus, make_synthetic_db
+from synthetic import make_genome_from_locus, make_synthetic_db
 
 
 @pytest.fixture(scope="module")

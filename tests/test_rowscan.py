@@ -1,7 +1,7 @@
-"""Parity tests for the row-compact minimizer scan (ops/scan_pallas.py).
+"""Parity tests for the row-compact minimizer scan (ops/rowscan.py).
 
-The host scan (``minimizer_scan_host``) is the oracle: the Pallas kernel and
-its XLA mirror must select exactly the same (position, hash, strand) set.
+The host scan (``minimizer_scan_host``) is the oracle: the device scan must
+select exactly the same (position, hash, strand) set.
 Mirrors the reference's kernel-vs-container testing style
 (``/root/reference/tests/test_core.py``).
 """
@@ -9,9 +9,8 @@ Mirrors the reference's kernel-vs-container testing style
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
-from kaptive_tpu.ops import scan_pallas as SP
+from kaptive_tpu.ops import rowscan as SP
 from kaptive_tpu.ops.minimizer import DEFAULT_K, DEFAULT_W, minimizer_scan_host
 
 
@@ -44,7 +43,7 @@ def _random_stream(rng, rows):
 def test_rowcompact_xla_matches_host_scan():
     rng = np.random.default_rng(7)
     codes = _random_stream(rng, 1024)
-    padded = SP.pad_codes_for_scan_any(codes)
+    padded = SP.pad_codes_for_scan(codes)
     h, a, c = [np.asarray(x)[0] for x in SP.rowcompact_scan_xla(
         jnp.asarray(padded[None]), DEFAULT_K, DEFAULT_W
     )]
@@ -57,7 +56,7 @@ def test_rowcompact_xla_multi_contig_sentinels():
     codes = _random_stream(rng, 512)
     for cut in (1000, 30000, 50001):
         codes[cut : cut + DEFAULT_K - 1] = 4
-    padded = SP.pad_codes_for_scan_any(codes)
+    padded = SP.pad_codes_for_scan(codes)
     h, a, c = [np.asarray(x)[0] for x in SP.rowcompact_scan_xla(
         jnp.asarray(padded[None]), DEFAULT_K, DEFAULT_W
     )]
@@ -78,16 +77,3 @@ def test_compact_lanes_reference():
         assert counts[r, 0] == len(want)
         assert np.array_equal(out[r][live[r]], want)
         assert np.array_equal(np.flatnonzero(live[r]), np.arange(len(want)))
-
-
-@pytest.mark.skipif(
-    not SP.default_device_is_tpu(), reason="Pallas TPU kernel needs a TPU"
-)
-def test_rowcompact_pallas_matches_xla():
-    rng = np.random.default_rng(23)
-    codes = _random_stream(rng, SP.TILE_ROWS * 2)
-    padded = SP.pad_codes_for_scan(codes)
-    outs_p = SP.rowcompact_scan_tpu(jnp.asarray(padded[None]), DEFAULT_K, DEFAULT_W)
-    outs_x = SP.rowcompact_scan_xla(jnp.asarray(padded[None]), DEFAULT_K, DEFAULT_W)
-    for p, x in zip(outs_p, outs_x):
-        assert np.array_equal(np.asarray(p), np.asarray(x))

@@ -22,7 +22,7 @@ from kaptive_tpu.serotyping import (
     SerotypingProblem,
     SerotypingResult,
 )
-from tests.synthetic import make_synthetic_db, mutate_dna, random_dna, revcomp
+from synthetic import make_synthetic_db, mutate_dna, random_dna, revcomp
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,7 @@ import pytest
 
 from kaptive_tpu.core.pairwise import PairwiseAligner, blosum62_matrix
 from kaptive_tpu.core.seq import Sequences
-from tests.oracles import banded_swg_oracle
+from oracles import banded_swg_oracle
 
 AA = b"ARNDCQEGHILKMFPSTWYV"
 
